@@ -8,7 +8,7 @@ time and parallel efficiency, for both distributed tiers:
  * gspmd      — NamedSharding-annotated cycle, XLA-inserted collectives,
    slab or pencil mesh (parallel/grid_sharded.py)
 
-On real multi-chip hardware this measures true ICI scaling; on a single host
+On real multi-GPU hardware this measures true interconnect scaling; on a single host
 it can still be exercised with virtual devices
 (`XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
 python bench_scaling.py`) to validate the communication pattern — virtual-

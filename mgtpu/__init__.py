@@ -1,4 +1,4 @@
-"""mgtpu — a TPU-native multigrid solver framework (JAX/XLA/Pallas).
+"""mgtpu — a GPU-native multigrid solver framework (JAX/XLA).
 
 Built from scratch with the capability surface of JuliaInv/Multigrid.jl
 (see SURVEY.md at the repo root): geometric multigrid on regular meshes

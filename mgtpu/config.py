@@ -2,9 +2,9 @@
 
 The reference framework (JuliaInv/Multigrid.jl) is {Float32,Float64,ComplexF32,
 ComplexF64}-generic (reference: src/Multigrid.jl:19-20, MGdef.jl:91-116).  We keep
-the same four value types.  float64/complex128 require `jax_enable_x64`; on TPU
-f64 is emulated and slow, so the production path is f32/bf16 with f64 reserved
-for host-side (CPU) verification and for norm accumulation where needed.
+the same four value types.  float64/complex128 require `jax_enable_x64`; the
+production path is f32 hierarchies with f64 (or double-single) residuals for
+refinement and host-side scipy f64 for verification.
 """
 from __future__ import annotations
 
@@ -15,28 +15,28 @@ import numpy as np
 
 _X64_ENABLED = False
 
+# Precision of every float32 matrix product on the solve path.  XLA:GPU may
+# otherwise run f32 products in TF32 (about three decimal digits), which
+# would cap the coarsest solve, the Krylov projections and the Vanka block
+# solves near 1e-3 relative error.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+# Persistent XLA compilation cache.  Where JAX_COMPILATION_CACHE_DIR is set,
+# JAX reads it itself and nothing is set here; otherwise the cache lives at
+# this one fixed path inside the checkout (listed in .gitignore), so every
+# process started from the checkout hits the same cache.
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".xla_cache")
+
 
 def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache (opt-out: MGTPU_COMPILE_CACHE=off).
-
-    Cold-setup cost is dominated by one-time XLA compiles (measured: 22 s to
-    compile the blocked device LU for a 4913-dof coarsest level on a v5e,
-    1.6 ms per factorization after).  The persistent cache makes those
-    one-per-machine instead of one-per-process — the steady-state jInv
-    workflow (fresh process per inversion run) depends on it.
-    """
-    mode = os.environ.get("MGTPU_COMPILE_CACHE", "")
-    if mode.lower() in ("off", "0", "none"):
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    path = mode if mode and os.path.isabs(mode) else os.path.join(
-        os.path.expanduser("~"), ".cache", "mgtpu", "xla_cache")
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        # cache everything that took noticeable compile time
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass                       # cache is an optimization, never fatal
+    os.makedirs(COMPILE_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 _enable_compile_cache()

@@ -3,7 +3,7 @@
 The reference factorises the coarsest operator with sparse LU (UMFPACK,
 reference src/Multigrid/MGsetup.jl:350) or falls back to a one-shot
 Jacobi-preconditioned FGMRES (MGcycle.jl:152-168).  Sparse triangular solves
-are inherently sequential and a poor fit for the TPU; coarse grids are small
+are inherently sequential and a poor fit for the device; coarse grids are small
 by construction, so the idiomatic equivalent is a *dense* replicated LU whose
 batched triangular solves run on-device (SURVEY.md §2 native-component
 checklist item 4).  DD / Schur / direct-solver coarsest options plug in via
@@ -79,7 +79,7 @@ class SparseLUCoarse:
     This is the same design point: when the coarsest level is too large for
     a replicated dense inverse/LU (O(nc^2) device memory), the cycle calls
     back to a scipy SuperLU factorization on the host.  One host round-trip
-    per cycle (~ms on a remote-attached rig) against an O(nnz) factor —
+    per cycle against an O(nnz) factor —
     the escape hatch for AMG hierarchies that bottom out at 1e5 dofs.
 
     solve(b): b is (n,) or (n, m) [flat engine convention].
@@ -118,8 +118,8 @@ def sparse_lu_from_scipy(A: sp.spmatrix, dtype=None) -> SparseLUCoarse:
 def dense_lu_from_scipy(A: sp.spmatrix, dtype=None) -> DenseLU:
     """Factorize on the host (LAPACK getrf), ship L/U + pivots to the device.
 
-    Only the triangular solves run on-chip (batched trsm — MXU-friendly);
-    factoring on host avoids the TPU blocked-LU kernel's vmem ceiling for
+    Only the triangular solves run on the device (batched trsm); factoring
+    on the host keeps the device LU's transient memory out of setup for
     coarse grids in the 10k-100k range and costs nothing in the solve path.
     """
     import scipy.linalg as sla

@@ -5,19 +5,17 @@ full-weighting hierarchies, but every operation is expressed on the node grid:
 
  * level operators are `GridStencil`s (shift-multiply-accumulate SpMV),
  * P/R are applied matrix-free as separable [0.5, 1, 0.5] tensor-product
-   smoothing + up/down-sampling (exactly the operators fw_interp builds for
-   odd node counts, reference GeometricTransferOperators.jl:22-46, including
-   the boundary rows, because zero-padded smoothing truncates the same way),
- * the coarsest solve is one dense matmul with a host-precomputed inverse
-   (the TPU-idiomatic form of the reference's replicated coarsest LU,
-   MGsetup.jl:350 — triangular solves are sequential and slow on TPU, a
-   (nc x nc) @ (nc x m) matmul is MXU work).
+   smoothing + stride-2 up/down-sampling (exactly the operators fw_interp
+   builds, reference GeometricTransferOperators.jl:22-46, including the
+   boundary rows, because zero-padded smoothing truncates the same way),
+ * the coarsest solve is one dense matmul with a precomputed inverse (the
+   replicated form of the reference's coarsest LU, MGsetup.jl:350: one
+   (nc x nc) @ (nc x m) product per cycle instead of two sequential
+   triangular solves).
 
-Fields are (m, *grid) with the fastest mesh axis last = TPU lanes; the flat
-(n, m) layout with m=1 wastes 127/128 lanes on every elementwise op and —
-worse — makes ELL-gather transfers the cycle bottleneck.  Measured on the
-1024^2 Poisson benchmark this engine removes ~97% of the flat cycle's device
-time (see BASELINE.md).
+Fields are (m, *grid) with the fastest mesh axis last and contiguous, so
+every smoother and residual is a fused elementwise loop over the grid and
+the transfers need no gathers.
 """
 from __future__ import annotations
 
@@ -30,12 +28,14 @@ import jax.scipy.linalg as jsl
 import numpy as np
 import scipy.sparse as sp
 
+from ..config import HIGHEST
 from ..ops.grid_stencil import (GridStencil, make_grid_stencil,
-                                flat_to_grid, grid_to_flat)
+                                flat_to_grid, grid_to_flat, _interleave)
 from .relax import fgmres_relaxation
 
 __all__ = [
     "GridLevel", "GridHierarchy", "DenseInverse", "GridIterativeCoarse",
+    "FWTransfer",
     "grid_dense_inverse_from_scipy",
     "grid_restrict", "grid_prolong", "grid_cycle", "build_grid_hierarchy",
 ]
@@ -47,7 +47,7 @@ __all__ = [
 class GridLevel:
     A: GridStencil
     d: jax.Array | None      # pointwise relax diagonal, grid-shaped
-    P1: tuple | None         # per-grid-axis dense 1D prolongation (f_a, c_a)
+    P1: object | None        # FWTransfer / Stride2Transfer (None: coarsest)
     lam: float | None = None  # spec(D^-1 A) bound (chebyshev smoothing)
 
 
@@ -62,7 +62,7 @@ class DenseInverse:
     def solve(self, bg: jax.Array) -> jax.Array:
         """bg: (m, *grid) -> (m, *grid)."""
         m = bg.shape[0]
-        xf = bg.reshape(m, -1) @ self.inv.T
+        xf = jnp.matmul(bg.reshape(m, -1), self.inv.T, precision=HIGHEST)
         return xf.reshape((m,) + self.grid)
 
 
@@ -71,15 +71,14 @@ def _dense_inverse_device(rows, cols, data, n, shift_rel):
     """COO -> dense (+ optional relative diagonal shift) + LU + invert, all
     on device.  Returns (inv, err): err is the max identity residual
     |A inv - I| over a 256-column stride sample — the host uses it to decide
-    whether an UNSHIFTED inverse is trustworthy (ADVICE r2: the shift must
+    whether an UNSHIFTED inverse is trustworthy (the shift must
     not perturb well-conditioned nonsingular coarsest operators).
 
     The inverse comes from lu_solve against the identity: the n-RHS
-    triangular solves are blocked matmuls (MXU work, tens of ms at
-    nc ~ 16k), whereas per-cycle single-RHS triangular solves are
-    latency-bound on TPU (measured 15 ms vs 0.3 ms for the DenseInverse
-    matmul on the SA-AMG 512^2 coarse level) — so the factorization is a
-    setup-time device step and the cycle keeps the one-matmul solve."""
+    triangular solves are blocked, matrix-rate work at setup, whereas
+    per-cycle single-RHS triangular solves are sequential and
+    latency-bound — so the factorization is a setup-time device step and
+    the cycle keeps the one-matmul solve."""
     Ad = jnp.zeros((n, n), dtype=data.dtype).at[rows, cols].add(data)
     if shift_rel:
         sh = shift_rel * jnp.max(jnp.sum(jnp.abs(Ad), axis=0))
@@ -88,7 +87,8 @@ def _dense_inverse_device(rows, cols, data, n, shift_rel):
     inv = jsl.lu_solve((lu, piv), jnp.eye(n, dtype=Ad.dtype))
     cols_s = jnp.arange(0, n, max(1, n // 256))
     eye_s = (cols_s[None, :] == jnp.arange(n)[:, None]).astype(inv.dtype)
-    err = jnp.max(jnp.abs(Ad @ inv[:, cols_s] - eye_s))
+    err = jnp.max(jnp.abs(jnp.matmul(Ad, inv[:, cols_s], precision=HIGHEST)
+                          - eye_s))
     return inv, err
 
 
@@ -97,12 +97,12 @@ def grid_dense_inverse_from_scipy(A_c: sp.spmatrix, grid_c,
     """Device-built dense inverse for large coarsest levels (reference bar:
     UMFPACK factors ANY coarsest size, MGsetup.jl:350).
 
-    No O(nc^3) host inversion (measured 7.2 s at nc = 4913 on the bench
-    host).  The plain inverse is tried first; only if its sampled identity
-    residual is non-finite or large (near-singular coarsest, e.g. a Neumann
-    constant nullspace) is the reference's AMG coarsest regularization
-    applied (SA-AMG.jl:63), widened to 1e-6 in single precision where a
-    1e-8 relative perturbation of the diagonal underflows f32 addition."""
+    No O(nc^3) host inversion.  The plain inverse is tried first; only if
+    its sampled identity residual is non-finite or large (near-singular
+    coarsest, e.g. a Neumann constant nullspace) is the reference's AMG
+    coarsest regularization applied (SA-AMG.jl:63), widened to 1e-6 in
+    single precision where a 1e-8 relative perturbation of the diagonal
+    underflows f32 addition."""
     Ac = A_c.tocoo()
     args = (jnp.asarray(Ac.row), jnp.asarray(Ac.col),
             jnp.asarray(Ac.data.astype(dtype)))
@@ -167,31 +167,88 @@ class GridHierarchy:
 
 
 # ---------------------------------------------------------------------------
-# tensor-product full-weighting transfers as per-axis 1D matmuls
+# tensor-product full-weighting transfers
 #
-# The separable [0.5, 1, 0.5] smooth + resample along one grid axis IS a small
-# dense matmul with the 1D fw_interp factor (f_a x c_a).  On TPU this is the
-# fastest form by far: stride-2 resampling in the lane dimension and
-# interior-padding upsampling are slow relayouts (~25x slower measured at
-# 1025^2), while the MXU does the contraction at full speed.  The extra
-# products are exact zeros, so the result is bitwise the sparse operator's.
+# The separable [0.5, 1, 0.5] smooth + resample along one grid axis is three
+# strided multiply-adds per point: XLA fuses each axis pass into one loop.
+# A dense per-axis matmul with the 1D fw_interp factor (f_a x c_a) computes
+# the same operator at f_a * c_a multiply-adds per line; only the sharded
+# tier keeps that form (parallel/grid_sharded.py), because its zero-padded
+# factors keep the pad region of a padded embedding inert.
 # ---------------------------------------------------------------------------
 
+@functools.partial(jax.tree_util.register_dataclass,
+                   data_fields=[], meta_fields=["fine"])
+@dataclass(frozen=True)
+class FWTransfer:
+    """Full-weighting P = kron of the 1D fw_interp factors, matrix-free.
+
+    fine: per grid axis, the fine extent of a coarsened axis or None for an
+    axis that is not coarsened (semicoarsening).  An odd extent coarsens
+    every other node; an even extent keeps the last node as an identity
+    tail (setup/transfers.fw_interp_1d)."""
+    fine: tuple
+
+    def restrict(self, r):
+        """R r = 0.5^dim P^T r on (m, *fine_grid) fields."""
+        y = r
+        for a, n in enumerate(self.fine):
+            if n is not None:
+                y = _fw_restrict_axis(y, 1 + a, n)
+        return (0.5 ** sum(n is not None for n in self.fine)) * y
+
+    def prolong(self, xc):
+        """P xc on (m, *coarse_grid) fields."""
+        y = xc
+        for a, n in enumerate(self.fine):
+            if n is not None:
+                y = _fw_prolong_axis(y, 1 + a, n)
+        return y
+
+
+def _sl(x, axis, start, stop, step=1):
+    return jax.lax.slice_in_dim(x, start, stop, step, axis=axis)
+
+
+def _fw_restrict_axis(x, axis: int, n: int):
+    """P1^T x along `axis`: out[i] = x[2i] + (x[2i-1] + x[2i+1]) / 2."""
+    if n % 2 == 0:                       # identity tail on the last node
+        return jnp.concatenate([_fw_restrict_axis(_sl(x, axis, 0, n - 1),
+                                                  axis, n - 1),
+                                _sl(x, axis, n - 1, n)], axis=axis)
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (1, 1)
+    xp = jnp.pad(x, pad)                 # xp[k] = x[k - 1]
+    return (_sl(xp, axis, 1, n + 1, 2)
+            + 0.5 * (_sl(xp, axis, 0, n, 2) + _sl(xp, axis, 2, n + 2, 2)))
+
+
+def _fw_prolong_axis(xc, axis: int, n: int):
+    """P1 xc along `axis`: coarse nodes inject, midpoints average."""
+    c = xc.shape[axis]
+    if n % 2 == 0:                       # identity tail on the last node
+        return jnp.concatenate([_fw_prolong_axis(_sl(xc, axis, 0, c - 1),
+                                                 axis, n - 1),
+                                _sl(xc, axis, c - 1, c)], axis=axis)
+    mid = 0.5 * (_sl(xc, axis, 0, c - 1) + _sl(xc, axis, 1, c))
+    return _interleave(xc, mid, axis)
+
+
 def _axis_matmul(x: jax.Array, W: jax.Array, axis: int) -> jax.Array:
-    """Contract `axis` of x with W (in, out)."""
+    """Contract `axis` of x with W (in, out) at full f32 precision."""
     xl = jnp.moveaxis(x, axis, -1)
-    y = xl @ W
+    y = jnp.matmul(xl, W, precision=HIGHEST)
     return jnp.moveaxis(y, -1, axis)
 
 
 def grid_restrict(rg: jax.Array, P1) -> jax.Array:
     """R r; rg is (m, *fine_grid).
 
-    P1 is either the per-axis dense factor tuple (geometric full weighting,
-    R = 0.5^dim P^T) or a Stride2Transfer (matrix-dependent prolongator,
-    R = P^H — the SA convention)."""
-    from ..ops.grid_stencil import Stride2Transfer
-    if isinstance(P1, Stride2Transfer):
+    P1 is an FWTransfer (geometric full weighting, R = 0.5^dim P^T), a
+    Stride2Transfer (matrix-dependent prolongator, R = P^H — the SA
+    convention), or the sharded tier's tuple of padded per-axis dense
+    factors."""
+    if not isinstance(P1, tuple):
         return P1.restrict(rg)
     y = rg
     nc = 0
@@ -205,8 +262,7 @@ def grid_restrict(rg: jax.Array, P1) -> jax.Array:
 
 def grid_prolong(xc: jax.Array, P1) -> jax.Array:
     """P xc; xc is (m, *coarse_grid)."""
-    from ..ops.grid_stencil import Stride2Transfer
-    if isinstance(P1, Stride2Transfer):
+    if not isinstance(P1, tuple):
         return P1.prolong(xc)
     y = xc
     for a, W in enumerate(P1):
@@ -219,26 +275,6 @@ def grid_prolong(xc: jax.Array, P1) -> jax.Array:
 # ---------------------------------------------------------------------------
 # cycle
 # ---------------------------------------------------------------------------
-
-def _fused3d_interpret(cfg, lvl: "GridLevel"):
-    """interpret-flag for the fused 3D kernels at this level, or None.
-
-    Rides on ConstGridStencil.faces (built only for 3D radius-1 f32 levels
-    past the size floor, ops/pallas/const3d.supports_const3d) and the same
-    MGTPU_PALLAS3D mode switch as the one-pass matvec kernel."""
-    if cfg.relax_type not in ("jacobi", "spai") or lvl.d is None:
-        return None
-    from ..ops.grid_stencil import ConstGridStencil, _pallas3d_mode
-    A = lvl.A
-    if not isinstance(A, ConstGridStencil) or A.faces is None:
-        return None
-    if not hasattr(lvl.d, "shape") or tuple(lvl.d.shape) != tuple(A.grid):
-        return None
-    mode = _pallas3d_mode()
-    if mode == "off":
-        return None
-    return mode == "interpret"
-
 
 def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int):
     if nu <= 0:
@@ -274,11 +310,8 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
     cycles of the refined drivers.  The entry residual is then b itself, so
     the r = b - A*0 matvec is skipped (XLA cannot fold A@0: the stencil
     coefficients are runtime arrays).  One matvec saved per level per
-    cycle.  Results are bitwise-identical on the XLA engines (A@0 is exact
-    zeros); on the fused 3D Pallas path the double-apply pre-smooth
-    collapses to d*b + one residual3d apply, whose different in-kernel
-    accumulation order makes results float32-equivalent rather than
-    bitwise (tests/test_xzero.py pins both contracts)."""
+    cycle.  Results are bitwise-identical (A@0 is exact zeros;
+    tests/test_xzero.py pins it)."""
     ctype = cfg.cycle_type if ctype is None else ctype
     nlev = len(gh.levels)
     if level == nlev - 1:
@@ -286,36 +319,10 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
 
     lvl = gh.levels[level]
     matvec = lvl.A.matvec
-    f3 = _fused3d_interpret(cfg, lvl)
-    if f3 is not None:
-        from ..ops.pallas import fused3d as f3k
     with jax.named_scope(f"gmg_level{level}"):
-        if f3 is not None:
-            # fused 3D Pallas path: every sweep recomputes its residual
-            # inside one kernel pass; the LAST pre-smooth sweep and the
-            # restrict-feed residual share a single double-apply pass
-            # (ops/pallas/fused3d.py)
-            nu = cfg.nu_pre[level]
-            if x_zero and nu >= 1:
-                # first sweep off a zero iterate is elementwise (x1 = d*b);
-                # the double-apply collapses to a single apply
-                x = lvl.d * b
-                nu -= 1
-                if nu == 0:
-                    r = f3k.residual3d(lvl.A, b, x, interpret=f3)
-            if nu >= 1:
-                for _ in range(nu - 1):
-                    x = f3k.jacobi3d(lvl.A, lvl.d, b, x, interpret=f3)
-                x, r = f3k.jacobi_residual3d(lvl.A, lvl.d, b, x,
-                                             interpret=f3)
-            elif not x_zero:
-                r = f3k.residual3d(lvl.A, b, x, interpret=f3)
-            elif cfg.nu_pre[level] == 0:
-                r = b
-        else:
-            r = b if x_zero else b - matvec(x)
-            x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level])
-            r = b - matvec(x) if cfg.nu_pre[level] > 0 or not x_zero else b
+        r = b if x_zero else b - matvec(x)
+        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level])
+        r = b - matvec(x) if cfg.nu_pre[level] > 0 or not x_zero else b
         bc = grid_restrict(r, lvl.P1)
         if level == nlev - 2:
             with jax.named_scope("gmg_coarsest"):
@@ -335,19 +342,9 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
             elif ctype == "F":
                 xc = grid_cycle(cfg, gh, bc, xc, level + 1, "V")
 
-        p = grid_prolong(xc, lvl.P1)
-        if f3 is not None:
-            if cfg.nu_post[level] > 0:
-                # correction add folded into the first post-smooth pass
-                x = f3k.jacobi_corr3d(lvl.A, lvl.d, b, x, p, interpret=f3)
-                for _ in range(cfg.nu_post[level] - 1):
-                    x = f3k.jacobi3d(lvl.A, lvl.d, b, x, interpret=f3)
-            else:
-                x = x + p
-        else:
-            x = x + p
-            r = b - matvec(x)
-            x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_post[level])
+        x = x + grid_prolong(xc, lvl.P1)
+        r = b - matvec(x)
+        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_post[level])
     return x
 
 
@@ -357,33 +354,27 @@ def grid_cycle_jit(cfg, gh: GridHierarchy, b, x, x_zero: bool = False):
     return grid_cycle(cfg, gh, b, x, x_zero=x_zero)
 
 
-@functools.lru_cache(maxsize=None)
-def _cubic_factor_np(nf: int):
-    """1D cubic solution-prolongation factor (nf x nc) on an odd node grid.
+def _cubic_prolong_axis(xc, axis: int):
+    """1D cubic solution prolongation along `axis` onto the odd fine grid.
 
     Coarse nodes inject; midpoints interpolate cubically through the four
     nearest coarse nodes ([-1, 9, 9, -1]/16 interior; one-sided
-    [5, 15, -5, 1]/16 at the ends).  Classical FMG needs the SOLUTION
-    transferred at higher order than the correction transfers to reach
-    discretization accuracy in one pass (Brandt); full-weighting's linear
-    midpoints lose two orders."""
-    assert nf % 2 == 1 and nf >= 3
-    nc = (nf - 1) // 2 + 1
-    P = np.zeros((nf, nc), dtype=np.float64)
-    P[np.arange(0, nf, 2), np.arange(nc)] = 1.0
-    w_int = np.array([-1.0, 9.0, 9.0, -1.0]) / 16.0
-    w_lo = np.array([5.0, 15.0, -5.0, 1.0]) / 16.0
-    for m in range(nc - 1):               # midpoint between coarse m, m+1
-        r = 2 * m + 1
-        if nc < 4:                        # too few nodes for a cubic: linear
-            P[r, m:m + 2] = 0.5
-        elif m == 0:
-            P[r, 0:4] = w_lo
-        elif m == nc - 2:
-            P[r, nc - 4:nc] = w_lo[::-1]
-        else:
-            P[r, m - 1:m + 3] = w_int
-    return P
+    [5, 15, -5, 1]/16 at the ends; linear when fewer than 4 coarse nodes).
+    Classical FMG needs the SOLUTION transferred at higher order than the
+    correction transfers to reach discretization accuracy in one pass
+    (Brandt); full-weighting's linear midpoints lose two orders."""
+    c = xc.shape[axis]
+    at = lambda i, j: _sl(xc, axis, i, j)
+    if c < 4:
+        return _interleave(xc, 0.5 * (at(0, c - 1) + at(1, c)), axis)
+    first = (5.0 * at(0, 1) + 15.0 * at(1, 2) - 5.0 * at(2, 3)
+             + at(3, 4)) / 16.0
+    inner = (9.0 * (at(1, c - 2) + at(2, c - 1))
+             - (at(0, c - 3) + at(3, c))) / 16.0
+    last = (5.0 * at(c - 1, c) + 15.0 * at(c - 2, c - 1)
+            - 5.0 * at(c - 3, c - 2) + at(c - 4, c - 3)) / 16.0
+    return _interleave(xc, jnp.concatenate([first, inner, last], axis=axis),
+                       axis)
 
 
 def _cubic_prolong(xc, fine_grid):
@@ -392,8 +383,8 @@ def _cubic_prolong(xc, fine_grid):
     for a, nf in enumerate(fine_grid):
         if y.shape[1 + a] == nf:          # axis not coarsened (semicoarsening)
             continue
-        W = jnp.asarray(_cubic_factor_np(int(nf)), dtype=xc.dtype)
-        y = _axis_matmul(y, W.T, 1 + a)
+        assert nf % 2 == 1 and nf == 2 * y.shape[1 + a] - 1
+        y = _cubic_prolong_axis(y, 1 + a)
     return y
 
 
@@ -416,11 +407,10 @@ def grid_fmg(cfg, gh: GridHierarchy, b, n_cycles: int = 1):
     x = gh.coarse.solve(bs[-1])
     for l in range(nlev - 2, -1, -1):
         fine_grid = gh.levels[l].A.grid
-        from ..ops.grid_stencil import Stride2Transfer
-        if isinstance(gh.levels[l].P1, Stride2Transfer):
-            x = grid_prolong(x, gh.levels[l].P1)   # matrix-dependent: keep
-        else:
+        if isinstance(gh.levels[l].P1, FWTransfer):
             x = _cubic_prolong(x, fine_grid)
+        else:
+            x = grid_prolong(x, gh.levels[l].P1)   # matrix-dependent: keep
         for _ in range(n_cycles):
             x = grid_cycle(cfg, gh, bs[l], x, level=l)
     return x
@@ -444,7 +434,7 @@ _GRID_RELAX = ("jacobi", "spai", "jac-gmres", "chebyshev", "chebyshev4",
 _DENSE_INV_MAX = 16384
 _HOST_INV_MAX = 4096      # host f64 inverse (pinv-safe) below this
 # replicated-dense budget: 20480^2 f32 = 1.7 GB for the factor; the old
-# 32768 cap meant a 4.3 GB inverse with ~13 GB LU transients (ADVICE r2)
+# 32768 cap meant a 4.3 GB inverse with ~13 GB LU transients
 _DENSE_LU_MAX = 20480
 
 
@@ -521,14 +511,13 @@ def build_grid_hierarchy(state, relax_states) -> GridHierarchy:
                 d = jnp.asarray(rs.d).reshape(A.grid)
             else:
                 raise ValueError("grid engine needs a diagonal relax state")
-            # dense per-axis 1D transfer factors; verify their Kronecker
+            # per-axis 1D full-weighting factors; verify their Kronecker
             # product is exactly the hierarchy's stored prolongation so the
-            # matmul transfers are bitwise-faithful to the host setup
+            # matrix-free transfers are faithful to the host setup
             # (mg_setup's own full-weighting transfers are these factors BY
             # construction — the kron re-assembly is skipped for them, it is
             # the dominant 3D setup cost).  Under semicoarsening an axis
-            # whose extent does not shrink carries a None factor (skipped
-            # by grid_restrict/grid_prolong).
+            # whose extent does not shrink is not coarsened.
             nodes_c = [int(v) + 1
                        for v in np.asarray(state.meshes[l + 1].n).ravel()]
             p1s = [tr.fw_interp_1d(nn)[0] if nn != ncn else None
@@ -546,10 +535,9 @@ def build_grid_hierarchy(state, relax_states) -> GridHierarchy:
                         or (K != state.Ps[l]).nnz != 0):
                     raise ValueError("hierarchy transfers are not the "
                                      "separable full-weighting factors")
-            P1 = tuple(None if p is None
-                       else jnp.asarray(np.asarray(p.todense(),
-                                                   dtype=cfg.dtype))
-                       for p in reversed(p1s))
+            P1 = FWTransfer(tuple(None if p is None else nn
+                                  for p, nn in zip(reversed(p1s),
+                                                   reversed(nodes))))
             lam = getattr(rs, "lam_max", None)
         else:
             lam = None
@@ -584,6 +572,6 @@ def build_grid_hierarchy(state, relax_states) -> GridHierarchy:
         coarse = GridSparseLU(splu(A_c.tocsc().astype(fdt)), tuple(grid_c))
     else:
         # large coarsest: device-built inverse (LU + n-RHS solve on
-        # the MXU) — no O(nc^3) host inversion
+        # the device) — no O(nc^3) host inversion
         coarse = grid_dense_inverse_from_scipy(A_c, grid_c, cfg.dtype)
     return GridHierarchy(tuple(levels), coarse)

@@ -1,12 +1,12 @@
 """Hybrid (domain-decomposed) row Kaczmarz smoother (device apply, jittable).
 
-TPU-native equivalent of the reference's native hybrid Kaczmarz kernel
+Device equivalent of the reference's native hybrid Kaczmarz kernel
 (reference: src/Multigrid/parRelax.jl:8-79 + deps/src/parRelax.h:7-43): the row
 set is partitioned into lexicographic subdomains; domains are swept in
 parallel, rows sequentially *within* each domain.  Damping is
 omega / ||a_row||^2; the update direction is the conjugated row.
 
-On TPU the domain axis is the vector axis: step i of the sequential loop
+On the device the domain axis is the parallel axis: step i of the sequential loop
 processes row i of every domain at once (one batched gather + scatter-add).
 Cross-domain collisions on overlapping columns accumulate deterministically
 via scatter-add (the reference's OpenMP kernel races benignly on the same
@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
+from ..config import HIGHEST
 from ..models.mesh import RegularMesh
 from ..ops.ell import ELL, ell_from_scipy
 from ..dd import indices as dd_indices
@@ -81,7 +82,7 @@ def kaczmarz_sweep(x: jax.Array, b: jax.Array, kz: KaczmarzRelax,
         ri = jnp.take(kz.ell_idx, rows, axis=0)   # (ndom, K)
         rv = jnp.take(kz.ell_val, rows, axis=0)
         xg = jnp.take(xc, ri.reshape(-1), axis=0).reshape(ndom, K, m)
-        ax = jnp.einsum("dk,dkm->dm", rv, xg)
+        ax = jnp.einsum("dk,dkm->dm", rv, xg, precision=HIGHEST)
         inner = (jnp.take(b, rows, axis=0) - ax)
         inner = inner * (jnp.take(kz.invd, rows) * msk)[:, None]
         contrib = rv.conj()[:, :, None] * inner[:, None, :]   # (ndom, K, m)

@@ -25,6 +25,8 @@ from dataclasses import dataclass
 import jax
 import jax.numpy as jnp
 
+from ..config import HIGHEST
+
 
 @functools.partial(jax.tree_util.register_dataclass,
                    data_fields=["d"], meta_fields=[])
@@ -40,7 +42,7 @@ class DiagRelax:
 class ChebyshevRelax:
     """Chebyshev polynomial smoother state: Jacobi diagonal + spectral bound.
 
-    A TPU-first smoother the reference does not have: a degree-k Chebyshev
+    A smoother the reference does not have: a degree-k Chebyshev
     polynomial in D^-1 A damps the upper spectrum [frac*lam, lam] far more per
     matvec than damped Jacobi, uses NO dot products (no psum in the sharded
     cycle), and keeps the whole cycle a fixed linear operator (CG-safe,
@@ -105,6 +107,14 @@ def relax_diag(matvec, r, x, b, d, num_it: int):
     return x + dcol * r
 
 
+def normal_equations(AZ, r):
+    """Gram matrix AZ^H AZ and projection AZ^H r of a minimal-residual
+    step, at full f32 precision."""
+    AZh = AZ.conj().T
+    return (jnp.matmul(AZh, AZ, precision=HIGHEST),
+            jnp.matmul(AZh, r, precision=HIGHEST))
+
+
 def fgmres_relaxation(matvec, prec, r0, x0, inner: int,
                       axis_name: str | None = None):
     """Minimal-residual correction over the preconditioned Krylov subspace.
@@ -135,21 +145,19 @@ def fgmres_relaxation(matvec, prec, r0, x0, inner: int,
         azs.append(ravel_pytree(w)[0])
     Z = jnp.stack(zs, axis=1)      # (n*m, inner)
     AZ = jnp.stack(azs, axis=1)    # (n*m, inner)
-    G = AZ.conj().T @ AZ           # (inner, inner) normal equations
-    c = AZ.conj().T @ r0f
+    G, c = normal_equations(AZ, r0f)
     if axis_name is not None:      # partitioned rows: globalise the Gram
         G = jax.lax.psum(G, axis_name)
         c = jax.lax.psum(c, axis_name)
     # Tikhonov-regularised Hermitian solve instead of pinv: numerically
     # equivalent for this PSD Gram system (the regularisation damps exactly
-    # the directions pinv's rtol would truncate), and — unlike the SVD
-    # inside pinv — compiles inside a `lax.while_loop` on XLA:TPU, whose
-    # TransposeFolding pass crashes on the pinv form (VERDICT r2 item 4;
-    # reference FGMRES.jl:95 uses pinv on the host).
+    # the directions pinv's rtol would truncate) and free of an SVD inside
+    # the refinement `lax.while_loop` (reference FGMRES.jl:95 uses pinv on
+    # the host).
     k = G.shape[0]
     reg = (8 * k) * jnp.finfo(G.dtype).eps * (jnp.trace(G).real / k + 1e-30)
     t = jnp.linalg.solve(G + reg * jnp.eye(k, dtype=G.dtype), c)
-    corr = unravel(Z @ t)
+    corr = unravel(jnp.matmul(Z, t, precision=HIGHEST))
     return jax.tree_util.tree_map(lambda a, b: a + b, x0, corr)
 
 
@@ -165,10 +173,10 @@ class LineRelax:
     full coarsening); solving whole lines along the strong axis restores
     h-independent smoothing.  The reference has no line smoother.
 
-    TPU-native solve: the Thomas factorisation is sequential, but its PIVOTS
+    Parallel solve: the Thomas factorisation is sequential, but its PIVOTS
     depend only on the matrix, so they are precomputed on host at setup;
     per application only first-order LINEAR recurrences remain, which run as
-    log-depth `lax.associative_scan`s along the line axis:
+    log-depth doubling scans along the line axis (_scan_linear):
         forward:  y_i = alpha_i y_{i-1} + pivot_i r_i
         backward: x_i = y_i - cprime_i x_{i+1}
 
@@ -184,28 +192,11 @@ class LineRelax:
     omega: float
 
 
-def _scan_linear_assoc(alpha, beta, axis, reverse=False):
-    """y_i = alpha_i y_{i-1} + beta_i via `lax.associative_scan`.
-
-    Kept for A/B comparison only: XLA lowers associative_scan through
-    slice/concat chains whose intermediate layouts force relayouts against
-    the stencil-consumer layout — measured 0.59 ms for the composed 257^2
-    line-Jacobi cycle vs 0.03 ms point Jacobi (ROADMAP item 3)."""
-    def combine(l, r):
-        al, bl = l
-        ar, br = r
-        return (ar * al, ar * bl + br)
-    ya, yb = jax.lax.associative_scan(combine, (alpha, beta), axis=axis,
-                                      reverse=reverse)
-    return yb
-
-
 def _shifted(v, d, axis, reverse, fill):
     """Element i-d (forward) or i+d (reverse) of v, out-of-range -> fill.
 
-    Pure static pad+slice: stays in the operand's standard layout, so XLA
-    fuses it into the surrounding elementwise work with no relayouts
-    (unlike associative_scan's slice/concat tree)."""
+    Pure static pad+slice: XLA fuses it into the surrounding elementwise
+    work."""
     n = v.shape[axis]
     pads = [(0, 0)] * v.ndim
     pads[axis] = (0, d) if reverse else (d, 0)
@@ -220,10 +211,9 @@ def _scan_linear(alpha, beta, axis, reverse=False):
 
     Hillis-Steele doubling with STATIC shifted adds: after step d, element
     i carries the recurrence composed over the last 2d terms; log2(n)
-    steps of (2 mul + 1 fma) full-array passes.  Same O(n log n) work as
-    associative_scan but expressed as pad/slice + elementwise in the
-    stencil layout — XLA keeps one layout end-to-end and fuses the chain
-    (the associative_scan form relayouts, ROADMAP item 3)."""
+    steps of (2 mul + 1 fma) full-array passes, expressed as pad/slice +
+    elementwise in the stencil layout so XLA keeps one layout end to end
+    and fuses the chain."""
     n = alpha.shape[axis]
     a, y = alpha, beta
     d = 1
@@ -236,49 +226,13 @@ def _scan_linear(alpha, beta, axis, reverse=False):
     return y
 
 
-def _line_mode() -> str:
-    """MGTPU_LINE_SCAN: 'auto' (default) | 'doubling' / '' (XLA doubling
-    scan) | 'assoc' (associative_scan, A/B baseline) | 'pallas' /
-    'pallas-interpret' (ops/pallas/tridiag.py one-pass kernels, f32 grids
-    only).  'auto' resolves to the Pallas kernel on TPU backends —
-    measured r4 (long-chain, healthy probe 0.011): 257^2 line-Jacobi
-    cycle 0.020 ms/cycle vs 0.029 doubling vs 0.048 assoc (point Jacobi
-    0.018) — and to the doubling scan elsewhere (the kernel interprets
-    ~100x slower on CPU).  Read at trace time — new processes only, not
-    a runtime knob."""
-    import os
-    mode = os.environ.get("MGTPU_LINE_SCAN", "auto")
-    if mode == "auto":
-        import jax as _jax
-        return ("pallas" if _jax.default_backend() not in ("cpu", "gpu")
-                else "")
-    return "" if mode == "doubling" else mode
-
-
 def line_solve(lr: LineRelax, r):
     """T^-1 r for grid fields r of shape (.., *grid)."""
-    mode = _line_mode()
-    if mode.startswith("pallas") and r.dtype == jnp.float32:
-        from ..ops.pallas.tridiag import line_solve_pallas
-        return line_solve_pallas(lr, r, interpret=mode.endswith("interpret"))
-    scan = _scan_linear_assoc if mode == "assoc" else _scan_linear
     ax = r.ndim - (lr.alpha.ndim - lr.axis)
     beta = lr.pivot * r
-    y = scan(jnp.broadcast_to(lr.alpha, beta.shape), beta, ax)
-    x = scan(jnp.broadcast_to(-lr.cprime, y.shape), y, ax,
-             reverse=True)
-    return x
-
-
-def _line_correct(lr: LineRelax, r, x):
-    """x + lr.omega * T^-1 r, with the damped add fused into the pallas
-    backward pass when that path is active."""
-    mode = _line_mode()
-    if mode.startswith("pallas") and r.dtype == jnp.float32:
-        from ..ops.pallas.tridiag import line_correct_pallas
-        return line_correct_pallas(lr, r, x,
-                                   interpret=mode.endswith("interpret"))
-    return x + lr.omega * line_solve(lr, r)
+    y = _scan_linear(jnp.broadcast_to(lr.alpha, beta.shape), beta, ax)
+    return _scan_linear(jnp.broadcast_to(-lr.cprime, y.shape), y, ax,
+                        reverse=True)
 
 
 @functools.partial(jax.tree_util.register_dataclass,
@@ -309,6 +263,6 @@ def line_smooth(matvec, lr, r, x, b, nu: int):
     if not steps:                      # nu == 0: total, like relax_diag
         return x
     for c in steps[:-1]:
-        x = _line_correct(c, r, x)
+        x = x + c.omega * line_solve(c, r)
         r = b - matvec(x)
-    return _line_correct(steps[-1], r, x)
+    return x + steps[-1].omega * line_solve(steps[-1], r)

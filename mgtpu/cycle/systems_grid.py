@@ -1,7 +1,7 @@
 """Grid-form multigrid engine for face-staggered systems (elasticity/Stokes).
 
 The flat engine treats the staggered system as one big ELL matrix — every
-SpMV, transfer and Vanka sweep is a TPU gather.  Here the system keeps its
+SpMV, transfer and Vanka sweep is a gather.  Here the system keeps its
 block structure: each unknown component (face-j velocities, optional
 cell-centered pressure) lives on its own node grid, operator blocks are
 `CrossGridStencil`s (shift-multiply-accumulate between grids), transfers are
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
+from ..config import HIGHEST
 from ..ops.cross_stencil import CrossGridStencil, cross_stencil_from_csr
 from .grid_cycle import _axis_matmul
 
@@ -162,7 +163,7 @@ class GridVanka:
     """Cell-wise Vanka in grid form.
 
     dinv:  (bs, bs, *cell_grid) weighted block inverses (single precision,
-           reference Vanka.jl:296), cell-grid laid out for full lanes.
+           reference Vanka.jl:296), cell grid contiguous in memory.
     masks: (ncolors, *cell_grid) 0/1 color masks (per-axis cell parity,
            reference cellColor Vanka.c:34-83); one all-ones "color" for the
            additive variant.
@@ -210,7 +211,7 @@ def grid_vanka_sweep(op: BlockGridOperator, gv: GridVanka, xs, bs_field,
             # gather block residual slots: windows of component residuals
             rs = jnp.stack([_window(r[comp], off, cg)
                             for comp, off in gv.slots], axis=1)  # (m, bs, *cg)
-            u = jnp.einsum("ij...,mj...->mi...", dinv, rs)
+            u = jnp.einsum("ij...,mj...->mi...", dinv, rs, precision=HIGHEST)
             u = u * gv.masks[c]
             xs = list(xs)
             for s, (comp, off) in enumerate(gv.slots):
@@ -272,7 +273,7 @@ class BlockDenseInverse:
 
     def solve(self, bs_field):
         bf = fields_to_block(bs_field)          # (n, m)
-        xf = (bf.T @ self.inv.T).T
+        xf = jnp.matmul(self.inv, bf, precision=HIGHEST)
         return block_to_fields(xf, self.grids)
 
 

@@ -1,6 +1,6 @@
 """Cell-wise Vanka block smoothers (device apply, jittable).
 
-TPU-native equivalent of the reference's native Vanka tier (reference:
+Device equivalent of the reference's native Vanka tier (reference:
 src/Multigrid/Vanka.jl:294-496 + deps/src/Vanka.c/h): cell-wise block
 relaxation for staggered face(+pressure) systems, swept by 2^dim cell colors
 (red-black family) so that updates within a color touch disjoint variables.
@@ -8,7 +8,7 @@ relaxation for staggered face(+pressure) systems, swept by 2^dim cell colors
 Instead of the reference's OpenMP loop over cells with per-cell CSR row walks,
 all cells of one color are processed as a single batched tensor contraction:
 block residuals are computed from pre-gathered ELL rows (one gather of x),
-multiplied by the precomputed block inverses (batched small-GEMM — MXU work),
+multiplied by the precomputed block inverses (batched small GEMMs),
 and scattered back disjointly.  Variants (reference Vanka.jl:13-17):
 
  * "vanka"        — FULL_VANKA_RB: colored sweep; with scalar damping the
@@ -30,6 +30,8 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
+
+from ..config import HIGHEST
 
 
 @functools.partial(jax.tree_util.register_dataclass,
@@ -56,7 +58,7 @@ def _block_residual(x, b, idx_c, rows_idx_c, rows_val_c):
     L, bs, K = rows_idx_c.shape
     xg = jnp.take(x, rows_idx_c.reshape(-1), axis=0).reshape(L, bs, K, x.shape[1])
     ax = jnp.einsum("lbk,lbkm->lbm", rows_val_c, xg,
-                    preferred_element_type=x.dtype)
+                    preferred_element_type=x.dtype, precision=HIGHEST)
     return jnp.take(b, idx_c.reshape(-1), axis=0).reshape(L, bs, x.shape[1]) - ax
 
 
@@ -77,7 +79,8 @@ def _colored_sweep(x, b, vr, num_it):
     for _ in range(num_it):
         for c in range(vr.ncolors):
             r = _block_residual(x, b, vr.idx[c], vr.rows_idx[c], vr.rows_val[c])
-            u = jnp.einsum("lij,ljm->lim", vr.dinv[c].astype(x.dtype), r)
+            u = jnp.einsum("lij,ljm->lim", vr.dinv[c].astype(x.dtype), r,
+                           precision=HIGHEST)
             x = x.at[vr.idx[c].reshape(-1)].add(u.reshape(-1, x.shape[1]))
     return x
 
@@ -89,7 +92,8 @@ def _additive_sweep(x, b, vr, num_it):
     y = x
     for _ in range(num_it):
         r = _block_residual(y, b, vr.idx[0], vr.rows_idx[0], vr.rows_val[0])
-        u = jnp.einsum("lij,ljm->lim", vr.dinv[0].astype(x.dtype), r)
+        u = jnp.einsum("lij,ljm->lim", vr.dinv[0].astype(x.dtype), r,
+                       precision=HIGHEST)
         x = x.at[vr.idx[0].reshape(-1)].add(u.reshape(-1, x.shape[1]))
     return x
 
@@ -103,9 +107,9 @@ def _lex_sweep(x, b, vr, num_it):
         ri = rows_idx[l]                      # (bs, K)
         rv = rows_val[l]
         xg = jnp.take(xc, ri.reshape(-1), axis=0).reshape(*ri.shape, xc.shape[1])
-        ax = jnp.einsum("bk,bkm->bm", rv, xg)
+        ax = jnp.einsum("bk,bkm->bm", rv, xg, precision=HIGHEST)
         r = jnp.take(b, idx[l], axis=0) - ax
-        u = dinv[l] @ r
+        u = jnp.matmul(dinv[l], r, precision=HIGHEST)
         return xc.at[idx[l]].add(u)
 
     for _ in range(num_it):
@@ -118,8 +122,10 @@ def _kaczmarz_cell_sweep(x, b, vr, num_it):
     for _ in range(num_it):
         for c in range(vr.ncolors):
             r = _block_residual(x, b, vr.idx[c], vr.rows_idx[c], vr.rows_val[c])
-            t = jnp.einsum("lij,ljm->lim", vr.dinv[c].astype(x.dtype), r)
-            contrib = jnp.einsum("lbk,lbm->lbkm", vr.rows_val[c].conj(), t)
+            t = jnp.einsum("lij,ljm->lim", vr.dinv[c].astype(x.dtype), r,
+                           precision=HIGHEST)
+            contrib = jnp.einsum("lbk,lbm->lbkm", vr.rows_val[c].conj(), t,
+                                 precision=HIGHEST)
             L, bs, K = vr.rows_idx[c].shape
             x = x.at[vr.rows_idx[c].reshape(-1)].add(
                 contrib.reshape(L * bs * K, x.shape[1]))

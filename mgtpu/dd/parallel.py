@@ -1,13 +1,13 @@
-"""Multi-device overlapping Schwarz (shard_map over a TPU mesh axis).
+"""Multi-device overlapping Schwarz (shard_map over a device mesh axis).
 
-TPU-native replacement for the reference's multi-process Schwarz tier
+Device-mesh replacement for the reference's multi-process Schwarz tier
 (src/DomainDecomposition/DDParallel.jl): the reference ships each subdomain to
 a Julia worker via RemoteChannels and does one RPC round trip per subdomain
 solve per color (DDParallel.jl:86-114).  Here the subdomain batch is laid out
 as (ncolors, L, ...) with the L axis sharded over a `jax.sharding.Mesh` axis:
 every device factors and solves its slice of subdomains, and the per-color
 corrections — disjoint within a color — are combined with a single psum over
-ICI.  The multicolor worker assignment (getWorkerForSubDomainMultiColor,
+the device interconnect.  The multicolor worker assignment (getWorkerForSubDomainMultiColor,
 DDParallel.jl:133-139) becomes block-cyclic assignment of same-color domains
 to devices.
 """

@@ -7,7 +7,7 @@ from A (or re-discretized with Dirichlet interface mass), factored once, then
 swept as a multiplicative Schwarz iteration over 2^dim box colors — used as a
 solver, a preconditioner for FGMRES, or the MG coarsest-level solver.
 
-TPU-native redesign:
+Device-native redesign:
  * all subdomains are factored as ONE batched dense LU (padded to the largest
    box) — the batched device counterpart of per-subdomain UMFPACK factors;
  * one Schwarz color = one batched program: per-domain block residuals are
@@ -16,7 +16,7 @@ TPU-native redesign:
  * the multi-process tier (reference DDParallel.jl: RemoteChannels + RPC per
    subdomain solve) becomes a `shard_map` over a device mesh axis: each device
    owns a slice of the subdomain batch; corrections are combined with one
-   psum per color over ICI.  Subdomain <-> shard (SURVEY.md §2 parallelism map).
+   psum per color over the interconnect.  Subdomain <-> shard (SURVEY.md §2 parallelism map).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
+from ..config import HIGHEST
 from ..models.mesh import RegularMesh, cs2loc
 from ..ops.ell import ell_from_scipy
 from ..solvers.direct import batched_dense_lu, BatchedDenseLU
@@ -69,7 +70,7 @@ def block_solve(idx, mask, ri, rv, lu, piv, x, b):
     L, k, K = ri.shape
     m = x.shape[1]
     xg = jnp.take(x, ri.reshape(-1), axis=0).reshape(L, k, K, m)
-    ax = jnp.einsum("lkq,lkqm->lkm", rv, xg)
+    ax = jnp.einsum("lkq,lkqm->lkm", rv, xg, precision=HIGHEST)
     r = (jnp.take(b, idx.reshape(-1), axis=0).reshape(L, k, m) - ax)
     r = r * mask[..., None]
     t = jax.vmap(lambda l_, p_, b_: jax.scipy.linalg.lu_solve((l_, p_), b_))(

@@ -4,10 +4,9 @@ Two layouts:
  * legacy columns: operands are (n,) / (n, m) with RHS on axis 1 — the
    reference's KrylovMethods convention.
  * leading batch: operands are (m, *space) with the RHS batch first and the
-   spatial axes free to be lane-efficient grid fields.  The grid multigrid
-   engine runs Krylov solves in this layout so that no (n, 1) flat vector —
-   which wastes 127/128 TPU lanes on every elementwise op — ever appears in
-   the iteration.
+   spatial axes free to be grid fields.  The grid multigrid
+   engine runs Krylov solves in this layout so that its grid fields never
+   pay a flat (n, m) <-> grid transpose inside the iteration.
 
 All per-RHS scalars (alpha, beta, rho, residual norms) are (m,) in both
 layouts.
@@ -15,6 +14,8 @@ layouts.
 from __future__ import annotations
 
 import jax.numpy as jnp
+
+from ..config import HIGHEST
 
 
 class Layout:
@@ -49,15 +50,15 @@ class Layout:
         if self.batch_leading:
             af = a.reshape(self.nbatch, -1)
             bf = b.reshape(self.nbatch, -1)
-            return af.conj() @ bf.T
-        return a.conj().T @ b
+            return jnp.matmul(af.conj(), bf.T, precision=HIGHEST)
+        return jnp.matmul(a.conj().T, b, precision=HIGHEST)
 
     def mix(self, v, S):
         """Column mixing: sum_i v_i S[i, j] -> j-th output RHS.
 
         The m x m coefficient matrices of block Krylov methods act on the
-        RHS axis; spatially this is one skinny matmul (MXU work)."""
+        RHS axis; spatially this is one skinny matmul."""
         if self.batch_leading:
             vf = v.reshape(self.nbatch, -1)
-            return (S.T @ vf).reshape(v.shape)
-        return v @ S
+            return jnp.matmul(S.T, vf, precision=HIGHEST).reshape(v.shape)
+        return jnp.matmul(v, S, precision=HIGHEST)

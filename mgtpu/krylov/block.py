@@ -7,9 +7,9 @@ column accelerates every column — fewer iterations than the independent
 batched recurrences in krylov.cg / krylov.bicgstab whenever the RHS are
 related, at the price of m x m Gram solves per iteration.
 
-TPU shape: the m x m coefficient blocks (alpha, beta) act on the RHS axis —
+Shape: the m x m coefficient blocks (alpha, beta) act on the RHS axis —
 each application is one skinny matmul (Layout.mix), and the Gram matrices
-are (m, n) @ (n, m) contractions: all MXU work.  The m x m solves use a
+are (m, n) @ (n, m) contractions, all at full f32 precision.  The m x m solves use a
 Tikhonov-guarded explicit solve (converged/dependent columns make the Gram
 blocks singular; the guard is the block analog of per-column freezing).
 

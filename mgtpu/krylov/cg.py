@@ -8,8 +8,8 @@ the VPU.  Converged columns are frozen by masking, so the loop is a single
 `lax.while_loop` with no host synchronisation.
 
 Operand layouts (see krylov._layout): legacy (n, m) columns, or leading-batch
-(m, *space) fields with `batch_leading=True` — the grid engine's lane-
-efficient form.
+(m, *space) fields with `batch_leading=True` — the grid engine's native
+form.
 """
 from __future__ import annotations
 

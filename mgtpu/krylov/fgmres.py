@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..config import HIGHEST
 from ._layout import Layout
 
 
@@ -58,15 +59,16 @@ def _fgmres_cycle(matvec, prec, restart: int, batch_leading: bool, X, B):
     e1 = jnp.zeros((m, restart + 1), dtype=B.dtype).at[:, 0].set(
         beta.astype(B.dtype))
     # normal equations on the small (k+1) x k system, regularised pinv
-    G = jnp.einsum("mki,mkj->mij", Hb.conj(), Hb)
-    c = jnp.einsum("mki,mk->mi", Hb.conj(), e1)
+    G = jnp.einsum("mki,mkj->mij", Hb.conj(), Hb, precision=HIGHEST)
+    c = jnp.einsum("mki,mk->mi", Hb.conj(), e1, precision=HIGHEST)
     # pinv tolerates happy breakdown (rank-deficient H on exact convergence)
-    y = jnp.einsum("mij,mj->mi", jnp.linalg.pinv(G, rtol=1e-12), c)
+    y = jnp.einsum("mij,mj->mi", jnp.linalg.pinv(G, rtol=1e-12), c,
+                   precision=HIGHEST)
     Zs = jnp.stack(Z, axis=-1)
     if batch_leading:
-        X = X + jnp.einsum("m...k,mk->m...", Zs, y)
+        X = X + jnp.einsum("m...k,mk->m...", Zs, y, precision=HIGHEST)
     else:
-        X = X + jnp.einsum("nmk,mk->nm", Zs, y)
+        X = X + jnp.einsum("nmk,mk->nm", Zs, y, precision=HIGHEST)
     Rn = B - matvec(X)
     return X, lay.norm(Rn)
 

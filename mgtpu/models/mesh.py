@@ -1,6 +1,6 @@
 """Regular (tensor-product) mesh.
 
-TPU-native equivalent of jInv.Mesh's `RegularMesh` consumed throughout the
+Equivalent of jInv.Mesh's `RegularMesh` consumed throughout the
 reference (reference: src/Multigrid/MGdef.jl:113, MGsetup.jl:96).  A mesh is a
 tiny immutable host-side object: `n` (cells per dimension), `domain`
 ([x1min,x1max,x2min,x2max,...]) and `h` (cell widths).  All heavy data lives on

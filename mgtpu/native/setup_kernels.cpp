@@ -1,12 +1,12 @@
 // Native host-side setup kernels for mgtpu.
 //
-// The TPU owns the solve path (JAX/XLA/Pallas); what remains host-bound is
+// The device owns the solve path (JAX/XLA); what remains host-bound is
 // the one-time hierarchy SETUP, whose inner loops are inherently sequential
 // greedy graph algorithms: SA neighborhood aggregation (reference
 // src/Multigrid/SA-AMG.jl:119-211) and Ruge-Stueben C/F coloring (reference
 // src/Multigrid/coloring.jl:13-122).  These are the mgtpu counterpart of the
-// reference's deps/ native tier, applied where native code actually helps a
-// TPU framework: the host runtime around the device compute.
+// reference's deps/ native tier, applied where native code actually helps an
+// accelerator framework: the host runtime around the device compute.
 //
 // All functions operate on CSR arrays with int64 indices, extern "C" for
 // ctypes binding (no pybind11 in this image).  Semantics mirror the numpy

@@ -5,8 +5,8 @@ grids — face-j velocity grids and the cell-centered pressure grid.  Each block
 A[ci, cj] of such an operator is still a stencil: the entry at output node r
 (on ci's grid) reads input nodes r + d (on cj's grid) for a small static set
 of per-axis shifts d.  Stored grid-form, the block SpMV is the same
-shift-multiply-accumulate as the square GridStencil — zero gathers, full
-lanes — just with different input/output extents.
+shift-multiply-accumulate as the square GridStencil — zero gathers,
+unit-stride reads — just with different input/output extents.
 
 Decomposition is done on COORDINATES (row/col unraveled per axis), not flat
 offsets, so there is no wrap-around aliasing to guard against.

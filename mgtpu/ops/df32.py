@@ -1,18 +1,17 @@
-"""Double-single (two-float32) compensated residuals for TPU refinement.
+"""Double-single (two-float32) compensated residuals for refinement.
 
-TPUs have no f64 ALUs; XLA emulates f64 accurately but ~5x slower than f32
-(measured 145us vs 29us for the 1024^2 fine-level stencil matvec on a v5e).
 The mixed-precision refinement driver (solvers/mg_solver.solve_mg_refined,
 mirroring the reference's shim at SolveFuncs.jl:52-58) only needs ONE
 high-precision operation per iteration — the fine residual r = b - A x —
-so this module provides it in double-single arithmetic: every high-precision
+so this module provides it in double-single arithmetic, with no need for jax
+x64 or a float64 copy of the operator: every high-precision
 number is an (hi, lo) pair of f32 with value hi + lo (~49-bit mantissa,
 |lo| <= ulp(hi)/2), computed with error-free transformations:
 
  * two_sum   (Knuth): exact a + b = s + e with 6 f32 flops, branch-free
  * split/two_prod (Dekker): exact a * b = p + e without FMA
 
-The residual runs entirely on native f32 VPU ops (~2-3x one f32 SpMV) and
+The residual runs entirely on native f32 ops (~2-3x one f32 SpMV) and
 carries ~1e-13 relative accuracy — far below the 1e-8 target even for
 kappa ~ 1e4 operators.  Operator coefficients come from the ORIGINAL f64
 matrix, split once at setup into (hi, lo) pairs over the constant-interior
@@ -36,12 +35,14 @@ __all__ = ["two_sum", "two_prod", "DFConstStencil", "df_const_from_csr",
            "df_residual_any", "df_accumulate_tree"]
 
 
-# NOTE on compiler safety: XLA:TPU (including with
-# --xla_allow_excess_precision=true, this toolchain's default) does NOT
-# algebraically rewrite (a + b) - a -> b etc. — verified on-device: the
-# unguarded transforms below reproduce the f64 residual to 2.5e-14 at
-# 1025^2.  If a future toolchain breaks this, wrap the marked intermediates
-# in jax.lax.optimization_barrier (costs ~40% here by blocking fusion).
+# NOTE on compiler safety: the transforms below need every product and sum
+# rounded as written — no algebraic rewrite of (a + b) - a -> b, and no FMA
+# contraction that skips the rounding of p = a*b.  As compiled by XLA:GPU
+# on an H100 they stay exact: two_prod, two_sum and two_sum(s, -p) match
+# float64 on 4M random pairs, and the 257^3 residual matches the host f64
+# residual to 7.5e-15 ||b|| (chip_smoke.py re-checks the residual on every
+# run).  If a toolchain breaks this, wrap the split and the product in
+# jax.lax.optimization_barrier.
 
 
 def two_sum(a, b):
@@ -351,7 +352,7 @@ def df_ell_from_csr(A: sp.spmatrix) -> DFEll:
     """Split an f64 CSR operator into df32 ELL form.
 
     The hi/lo split happens in NUMPY before any device transfer: with
-    jax_enable_x64=False (the production TPU state) a jnp.asarray of the
+    jax_enable_x64=False (JAX's default) a jnp.asarray of the
     f64 values would silently truncate to f32 and leave values_lo == 0,
     voiding the compensated-residual certification."""
     from .ell import ell_arrays_from_scipy

@@ -3,8 +3,8 @@
 Operators from tensor-product discretizations on regular meshes (and all their
 Galerkin full-weighting coarsenings) are banded with a small static set of
 offsets: 9 diagonals in 2D, 27 in 3D.  Storing them diagonal-wise turns SpMV
-into shift-multiply-accumulate — pure VPU work with unit-stride memory access
-and zero gathers, the speed-of-light form on TPU (vs. the reference's
+into shift-multiply-accumulate — elementwise work with unit-stride memory
+access and zero gathers (vs. the reference's
 row-gather CSR SpMV, src/Multigrid/SpMatMul.jl:4-26).
 
 Layout: ``data[d, i] = A[i, i + offsets[d]]`` (zero where out of range).

@@ -1,10 +1,10 @@
 """ELL (padded fixed-width row) sparse matrix — the universal device format.
 
-TPU-native replacement for the reference's CSC-transposed storage + OpenMP
+Device replacement for the reference's CSC-transposed storage + OpenMP
 adjoint SpMV (reference: src/Multigrid/SpMatMul.jl:4-26 backed by ParSpMatVec's
 C kernel).  The reference stores A transposed in CSC — i.e. CSR of A — and
-row-parallelises the product; the TPU analog is a row-padded (ELL) layout with
-static shapes so XLA can vectorise the gather+reduce over the VPU, and multiple
+row-parallelises the product; the device analog is a row-padded (ELL) layout
+with static shapes so XLA can vectorise the gather+reduce, and multiple
 right-hand sides batched in a trailing dimension (SpMM), mirroring the
 reference's first-class multi-RHS design (MGdef.jl:163-176).
 
@@ -20,6 +20,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
+
+from ..config import HIGHEST
 
 
 @functools.partial(jax.tree_util.register_dataclass,
@@ -61,7 +63,7 @@ def ell_arrays_from_scipy(A: sp.spmatrix, dtype=None, pad_k: int = 4):
 
     Kept in numpy so callers that need true f64 values (ops/df32.py hi/lo
     splitting) are not truncated by jnp.asarray under jax_enable_x64=False
-    — the production TPU state (Mosaic cannot lower x64 traces)."""
+    (JAX's default)."""
     A = A.tocsr()
     A.sum_duplicates()
     n, m = A.shape
@@ -93,7 +95,7 @@ def ell_matvec(indices: jax.Array, values: jax.Array, x: jax.Array) -> jax.Array
         x = x[:, None]
     xg = jnp.take(x, indices.reshape(-1), axis=0).reshape(n, K, x.shape[1])
     y = jnp.einsum("nk,nkm->nm", values, xg,
-                   preferred_element_type=values.dtype)
+                   preferred_element_type=values.dtype, precision=HIGHEST)
     return y[:, 0] if squeeze else y
 
 

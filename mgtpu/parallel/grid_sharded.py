@@ -4,16 +4,17 @@ Complementary to the hand-written slab tier (parallel/sharded.py, shard_map +
 ppermute over a 1D mesh): this variant shards the SAME single-chip hierarchy
 (cycle/grid_cycle.py) over a 1D or 2D device mesh with `NamedSharding`
 annotations and lets XLA insert the halo collective-permutes.  A 2D (pencil)
-decomposition keeps the surface-to-volume ratio — and therefore the ICI halo
-traffic per chip — bounded as the device count grows, which a slab
+decomposition keeps the surface-to-volume ratio — and therefore the halo
+traffic per device — bounded as the device count grows, which a slab
 decomposition cannot do.
 
 Grid extents are 2^k + 1 (odd), so as in parallel/systems_sharded.py the
 sharded hierarchy is a ZERO-PADDED embedding: every sharded grid axis rounds
 up to a multiple of its mesh-axis size.  Padded stencil coefficients and
 smoother diagonals are zero, so the pad region stays identically zero through
-the cycle, and the transfer factors get zero rows/columns so no data crosses
-the pad boundary.  Sharded levels use the dense-stencil form (the
+the cycle, and the transfers become per-axis dense 1D factors with zero
+rows/columns in the pad (applied as full-precision matmuls), so no data
+crosses the pad boundary.  Sharded levels use the dense-stencil form (the
 constant-interior compression's region concatenation partitions poorly;
 coefficient reads are the price of sharding).
 """
@@ -31,6 +32,7 @@ from ..cycle.grid_cycle import (GridHierarchy, GridLevel, DenseInverse,
                                 grid_cycle)
 from ..ops.grid_stencil import (GridStencil, ConstGridStencil, flat_to_grid,
                                 grid_to_flat)
+from ..setup.transfers import fw_interp_1d
 
 __all__ = ["make_grid_sharded_cycle", "pad_grid_hierarchy",
            "PaddedDenseInverse"]
@@ -84,8 +86,10 @@ def pad_grid_hierarchy(gh: GridHierarchy, divs: tuple[int, ...]
         if lvl.P1 is not None:
             pgc = pad_extents(gh.levels[l + 1].A.grid)
             # per-axis factors are (fine, coarse): zero rows/cols in the pad
-            P1 = tuple(_pad_to(W, (pf, pc), (0, 1))
-                       for W, pf, pc in zip(lvl.P1, pg, pgc))
+            P1 = tuple(None if n is None else
+                       _pad_to(jnp.asarray(fw_interp_1d(n)[0].toarray(),
+                                           dtype=Ap.dtype), (pf, pc), (0, 1))
+                       for n, pf, pc in zip(lvl.P1.fine, pg, pgc))
         levels.append(GridLevel(Ap, d, P1, lvl.lam))
 
     coarse = PaddedDenseInverse(gh.coarse, pad_extents(gh.coarse.grid))
@@ -118,7 +122,8 @@ def make_grid_sharded_cycle(state, mesh: Mesh, axes=("x",)):
         A = GridStencil(jax.device_put(lvl.A.coeff, spec(1)),
                         lvl.A.offsets, lvl.A.grid)
         d = (jax.device_put(lvl.d, spec(0)) if lvl.d is not None else None)
-        P1 = (tuple(jax.device_put(W, repl) for W in lvl.P1)
+        P1 = (tuple(None if W is None else jax.device_put(W, repl)
+                    for W in lvl.P1)
               if lvl.P1 is not None else None)
         return GridLevel(A, d, P1, lvl.lam)
 

@@ -1,5 +1,5 @@
 """Partitioned-iterate multi-chip tier for unstructured (flat ELL) AMG
-hierarchies — memory and bandwidth scale WITH devices (VERDICT r3 item 5).
+hierarchies — memory and bandwidth scale WITH devices.
 
 The r3 sharded AMG tier (parallel/sharded_amg.py) row-shards operators but
 keeps every iterate REPLICATED: one all-gather of the FULL vector per
@@ -10,7 +10,7 @@ keeps subdomain state on the owning worker and ships only
 O(subdomain)-sized data per solve (reference
 src/DomainDecomposition/DDParallel.jl:29-63,105).
 
-This tier is the TPU-native equivalent: every level's rows AND every
+This tier is the device-mesh equivalent: every level's rows AND every
 iterate are partitioned into contiguous blocks over a 1D mesh axis, and
 each operator application exchanges only the REMOTE ENTRIES its local rows
 actually reference — a precomputed, static halo:
@@ -18,7 +18,7 @@ actually reference — a precomputed, static halo:
  * setup (host): for each level operator (A, P, R), find each shard's
    referenced off-shard columns, group them by owning shard, and express
    the exchange as per-ring-distance `ppermute` steps with setup-padded
-   static sizes (TPU needs static shapes; distances with zero traffic on
+   static sizes (XLA needs static shapes; distances with zero traffic on
    every device are dropped — for mesh-ordered AMG hierarchies only
    neighbor distances survive).  Local ELL column indices are remapped
    into the concatenated [local block | halo_d1 | halo_d2 | ...] layout,
@@ -554,5 +554,5 @@ class PartitionedAMGSolver:
 
     def local_vector_rows(self) -> dict:
         """Per-device iterate rows per level (= ceil(n_l/ndev); the memory
-        claim `n/ndev + halo` of VERDICT r3 item 5)."""
+        claim `n/ndev + halo`)."""
         return {l: self.p[l] for l in range(len(self.p))}

@@ -1,7 +1,7 @@
 """Multi-chip sharded geometric multigrid (shard_map over a device mesh).
 
 The distributed execution tier (SURVEY.md §5): every non-coarsest level is
-slab-sharded along the last grid dimension; halo planes move over ICI with
+slab-sharded along the last grid dimension; halo planes move between devices with
 `ppermute`, overlapped by XLA with the local stencil work; inter-level
 transfers stay slab-local (coarse slab = half the fine slab, one halo plane);
 the coarsest level is gathered once (`all_gather`) and solved with the

@@ -1,9 +1,9 @@
 """Multi-chip solve drivers for UNSTRUCTURED (flat ELL/DIA) hierarchies —
-the sharded tier for SA-AMG / classical-AMG operators (VERDICT r2 item 7).
+the sharded tier for SA-AMG / classical-AMG operators.
 
 The reference's distributed tier handles ANY sparse operator by extracting
 row blocks per worker (reference src/DomainDecomposition/DDParallel.jl:5-66).
-The TPU-idiomatic equivalent is GSPMD row partitioning: every level's ELL
+The device-mesh equivalent is GSPMD row partitioning: every level's ELL
 rows (indices + values), the transfer rows, and the smoother diagonals are
 sharded over a 1D `jax.sharding.Mesh` axis, while the iterate vectors stay
 REPLICATED.  Each ELL matvec then gathers only from a replicated operand
@@ -11,7 +11,7 @@ REPLICATED.  Each ELL matvec then gathers only from a replicated operand
 application is the all-gather XLA inserts to re-replicate the row-sharded
 result — the standard 1D-partition SpMV pattern.  Norm reductions lower to
 local sums (replicated operands), so a whole V-cycle costs one all-gather
-per operator application over ICI.
+per operator application over the interconnect.
 
 The cycle itself is the SAME `recursive_cycle` the single-chip flat engine
 runs — sharding annotations change the partitioning, not the math — so

@@ -11,7 +11,7 @@ over a `jax.sharding.Mesh`, and the MG-preconditioned Krylov drivers
 Design: same zero-padded embedding as parallel/grid_sharded.py (sharded axes
 round up to mesh-axis multiples; pad coefficients/diagonals are zero so the
 pad region stays identically zero).  Residual norms are plain `jnp.sum`
-reductions over sharded fields — XLA lowers them to psum over ICI.  The df32
+reductions over sharded fields — XLA lowers them to all-reduces.  The df32
 residual operator here is the DENSE-stencil double-single form (the
 constant-interior region concatenation of ops/df32.DFConstStencil partitions
 poorly; the dense form shards like any other stencil).
@@ -200,7 +200,7 @@ class ShardedGridSolver:
         cfg = self.cfg
         bdt = np.asarray(b).dtype
         outer = bdt if np.issubdtype(bdt, np.floating) else cfg.dtype
-        # mixed-precision contract guard (ADVICE r2): with x64 disabled,
+        # mixed-precision contract guard: with x64 disabled,
         # jnp.asarray(..., float64) silently truncates to f32 and the
         # "f64 outer Krylov" would be fiction (max_iter stalls, relres
         # reported from f32 arithmetic).  Refuse rather than lie; the

@@ -4,8 +4,8 @@ On a regular mesh every GMG level operator (original discretization and all
 its full-weighting Galerkin coarsenings) is a 9-point (2D) / 27-point (3D)
 stencil with variable coefficients.  For multi-chip execution we shard fields
 by SLABS along the last grid dimension; slab-local application needs exactly
-one halo plane from each neighbor, exchanged with `ppermute` over ICI — the
-TPU-native replacement for the reference's shared-memory row-parallel SpMV
+one halo plane from each neighbor, exchanged with `ppermute` — the
+device-mesh replacement for the reference's shared-memory row-parallel SpMV
 (ParSpMatVec) and its master-centric Distributed tier (SURVEY.md §5).
 
 Grid layout: a flat vector x (dim-0 fastest) is viewed as G[j, i] = x[i + j*NI]
@@ -112,23 +112,18 @@ def stencil_matvec_overlapped(coeff_loc, di, dj, x_loc, axis_name: str):
     dependency (compute-comm overlap).
 
     `exchange_halo` + `stencil_matvec_local` makes every output row depend
-    on the ppermute, serialising ICI transfer before compute.  Here the
+    on the ppermute, serialising the transfer before compute.  Here the
     interior rows [1, S-1) read only local planes, so XLA's latency-hiding
-    scheduler is free to run the ICI transfer behind the interior stencil
+    scheduler is free to run the transfer behind the interior stencil
     work; only the two edge rows wait for their neighbor plane.  Per
     element the multiply-add sequence is identical to the fused form, so
     the result is bitwise equal (pinned by the conformance tests).
-
-    This is the XLA-level form of VERDICT r1 item 9; an explicit
-    `pltpu.make_async_remote_copy` ring kernel only pays off beyond what
-    the scheduler already overlaps and needs real multi-chip hardware to
-    measure — deferred (ROADMAP).
     """
     S = coeff_loc.shape[1]
     if S < 2:
         # at S == 1 the edge-row windows below ([:2], [S-2:]) would read a
         # duplicated local plane instead of the neighbor/zero halo —
-        # silently wrong edge rows (ADVICE r2).  Level plans keep slabs
+        # silently wrong edge rows.  Level plans keep slabs
         # >= 2 planes (slab_coarsest); fall back to the fused exchange,
         # which is correct for any S.
         return stencil_matvec_local(coeff_loc, di, dj,

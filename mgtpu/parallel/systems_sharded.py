@@ -8,7 +8,7 @@ per-axis dense matmuls (transfers) — so its multi-chip form is the
 "annotate shardings, let XLA insert the collectives" recipe: every component
 field and every grid-shaped hierarchy leaf is sharded along the SLOWEST grid
 axis of a 1D device mesh; the ±1 window shifts become collective-permute
-halo exchanges over ICI, and the replicated coarse dense solve needs no
+halo exchanges between devices, and the replicated coarse dense solve needs no
 communication (reference analog: the coarsest LU is always global,
 MGsetup.jl:350).
 

@@ -115,7 +115,7 @@ def cf_coloring_second_s(S: sp.csr_matrix, coloring: np.ndarray) -> np.ndarray:
     guarantees this).  The incremental pair-count bookkeeping assumes
     i in fconn[j] <=> j in fconn[i]; membership guards below keep the
     counts consistent even if a caller passes an asymmetric S, at the cost
-    of treating one-directional pairs as covered early (ADVICE r2)."""
+    of treating one-directional pairs as covered early."""
     n = S.shape[0]
     indptr, indices = S.indptr, S.indices
     coloring = np.asarray(coloring).copy()
@@ -171,7 +171,7 @@ def cf_coloring_second_s(S: sp.csr_matrix, coloring: np.ndarray) -> np.ndarray:
                 fconn[i2].discard(j2)
                 counts[i2] -= 1
                 push(heap, i2)
-                if i2 in fconn[j2]:       # asymmetric-S guard (ADVICE r2)
+                if i2 in fconn[j2]:       # asymmetric-S guard
                     fconn[j2].discard(i2)
                     counts[j2] -= 1
                     push(heap, j2)

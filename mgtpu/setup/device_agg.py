@@ -50,6 +50,8 @@ import scipy.sparse as sp
 import jax
 import jax.numpy as jnp
 
+from ..config import HIGHEST
+
 __all__ = ["device_aggregation", "pmis_coloring", "enforce_common_c",
            "ell_graph"]
 
@@ -197,7 +199,8 @@ def _assign_labels(idx, val, rank, root, n):
         # per-slot affinity: sum of strengths to neighbors sharing that
         # slot's label (groups the K neighbor slots by label)
         same = (nlab[:, :, None] == nlab[:, None, :]) & ok[:, :, None]
-        aff = jnp.einsum("ikj,ik->ij", same.astype(valf.dtype), valf)
+        aff = jnp.einsum("ikj,ik->ij", same.astype(valf.dtype), valf,
+                         precision=HIGHEST)
         size = jax.ops.segment_sum(
             (label >= 0).astype(jnp.float32), jnp.clip(label, 0), n)
         s = aff / jnp.maximum(size[jnp.clip(nlab, 0)], 1.0) + tie

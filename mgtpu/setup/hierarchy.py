@@ -1,7 +1,7 @@
 """Multigrid hierarchy: configuration, setup, and lifecycle.
 
 Equivalent of the reference's MGparam + MGsetup layer (src/Multigrid/MGdef.jl:91-116,
-MGsetup.jl:7-138) redesigned functionally for TPU:
+MGsetup.jl:7-138) redesigned functionally for an accelerator:
 
  * `MGConfig` — immutable, hashable solver configuration (the static part that
    shapes the compiled cycle): levels, cycle type, relaxation, per-level sweep
@@ -41,7 +41,7 @@ from ..cycle.relax import DiagRelax
 
 # Replicated-dense coarsest budget: beyond this the L/U (or inverse) factor
 # alone is O(nc^2) device memory (20480^2 f32 = 1.7 GB; the old 70000 cap
-# would have shipped a 19.6 GB factor — ADVICE r2).  Larger coarsest levels
+# would have shipped a 19.6 GB factor).  Larger coarsest levels
 # fall through to the host SuperLU callback (cycle/coarse.py:SparseLUCoarse).
 _DENSE_COARSE_MAX = 20480
 from . import transfers as tr

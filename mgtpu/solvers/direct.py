@@ -4,17 +4,17 @@ The reference factorises with UMFPACK and offers three triangular-solve
 backends, the native one OpenMP-parallel over {factorizations x RHS}
 (reference: src/ParallelJuliaSolver/parallelJuliaSolver.jl:48-238 +
 deps/src/parLU.cpp).  Sparse triangular solves are sequential and hostile to
-the TPU, so the TPU-native tier is:
+a wide device, so the device tier is:
 
  * `DirectSolver` — one system, factor once / solve many, A and A^H solves,
    all four value types, fac/solve counters:
      - backend "dense": on-device dense LU (jax.scipy.linalg.lu_factor) with
-       batched RHS triangular solves — the idiomatic TPU form for the sizes a
+       batched RHS triangular solves — the idiomatic device form for the sizes a
        coarsest grid or subdomain reaches;
      - backend "host":  scipy splu on the host for matrices too large to
        densify, bridged into jit via pure_callback when needed.
  * `BatchedDenseLU` — many small systems factored and solved as one batched
-   device program (vmapped LU): the TPU counterpart of the reference's
+   device program (vmapped LU): the device counterpart of the reference's
    OpenMP loop over num_LUs x num_rhs (parLU.cpp:122-190).  Used by the
    Schwarz subdomain tier.
 """

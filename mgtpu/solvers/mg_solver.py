@@ -32,9 +32,9 @@ def _as_2d(v):
 def _cycle_runtime(cfg, hier):
     """Engine-specific vector runtime for the solve loop.
 
-    The grid engine keeps solve-loop state in (m, *grid) form — flat (n, 1)
-    vectors waste 127/128 TPU lanes on every elementwise op, so converting
-    once at the loop boundary instead of every cycle matters.
+    The grid engine keeps solve-loop state in (m, *grid) form, converting
+    once at the loop boundary instead of every cycle (the flat (n, m) <->
+    grid conversion is a transpose).
     Returns (to_internal, to_flat, cycle_fn, matvec).  Internal "vectors" are
     arrays, or tuples of per-component fields for the systems engine — use
     the _v* helpers below for arithmetic on them.
@@ -209,8 +209,8 @@ def _df32_residual_op(state: MGState):
     form where the operator compresses, dense-stencil form for
     variable-coefficient scalar operators, and the block form for the
     staggered systems engine (mixed elasticity to TRUE 1e-8 without x64).
-    TPUs emulate f64 ~5x slower than f32, so the compensated two-float32
-    residual (ops/df32.py) is the native way to certify 1e-8.
+    The compensated two-float32 residual (ops/df32.py) certifies 1e-8 from
+    an f32 hierarchy without jax x64 or an f64 copy of the operator.
     """
     cached = getattr(state, "_df32_op_cache", None)
     if cached is not None:
@@ -244,12 +244,10 @@ def _df32_residual_op(state: MGState):
                     op = None
         else:
             # flat (ELL/DIA) engine — unstructured AMG hierarchies.  Without
-            # this form the refined loop fell back to the emulated-f64 SpMV
-            # (~5x slower on TPU) and, with jax x64 OFF, the f64 outer
-            # residual silently truncated to f32 and the solve FLOORED at
-            # ~1e-7 (measured r5: 512^2 rough-sigma SA, relres 1.15e-7 at
-            # the iteration cap) — the same df32-ELL machinery the sharded
-            # tiers already use (parallel/sharded_amg.py).
+            # this form, with jax x64 OFF, the f64 outer residual silently
+            # truncates to f32 and the solve floors at ~1e-7 — the same
+            # df32-ELL machinery the sharded tiers use
+            # (parallel/sharded_amg.py).
             from ..ops.df32 import df_ell_from_csr
             try:
                 op = df_ell_from_csr(sp.csr_matrix(A_host))
@@ -273,13 +271,13 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     SpMV extra per cycle.
 
     cycle_dtype optionally runs the correction cycle BELOW the hierarchy
-    precision (e.g. ``jnp.bfloat16``: half the smoother HBM traffic and 4x
-    faster MXU transfer matmuls); refinement restores outer-precision
+    precision (e.g. ``jnp.bfloat16``: half the smoother memory traffic);
+    refinement restores outer-precision
     accuracy at the cost of a slightly weaker per-iteration contraction.
 
     device_loop=True compiles the whole refinement loop into ONE program
-    (`lax.while_loop`) — on remote-attached TPUs a host-synced loop pays a
-    dispatch round-trip per iteration, which can exceed the cycle itself.
+    (`lax.while_loop`) — a host-synced loop pays a dispatch and a host
+    round trip per iteration, which can exceed a small cycle itself.
     """
     t0 = time.perf_counter()
     cfg = state.config
@@ -293,9 +291,6 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     cd = np.dtype(cycle_dtype) if cycle_dtype is not None \
         else np.dtype(cfg.dtype)
     hier_lo = _cast_hier(hier, cd) if cd != np.dtype(cfg.dtype) else hier
-    # (r2 workaround removed: the K-cycle projection is now a regularised
-    # Hermitian solve instead of pinv — cycle/relax.py — so the while_loop
-    # compiles on XLA:TPU and K-cycles refine as ONE device program.)
 
     to_internal, to_flat, cycle, _ = _cycle_runtime(cfg, hier)
     squeeze = np.ndim(b) == 1
@@ -463,8 +458,8 @@ def _refined_device_loop_df32(cfg, hier_lo, df_op, b_hi, b_lo, xh, xl,
     """Refinement loop with a double-single (two-f32) fine residual.
 
     One device dispatch for the whole solve; the compensated residual
-    (ops/df32.py) replaces the ~5x-slower emulated-f64 SpMV while keeping
-    ~1e-13 effective residual precision.  Fields are grid arrays (scalar
+    (ops/df32.py) keeps ~1e-13 effective residual precision from f32
+    arithmetic.  Fields are grid arrays (scalar
     engine) or tuples of component fields (systems engine — mixed
     elasticity certifies TRUE 1e-8 without x64); df_residual_any picks the
     matching compensated operator form.  use_fmg seeds x with one full
@@ -553,7 +548,7 @@ def _krylov_setup(state: MGState, b, x0):
     """Engine-aware Krylov operands.
 
     For the grid engine the whole Krylov iteration runs on (m, *grid) fields
-    (lane-efficient, zero conversions per preconditioner application, and the
+    (zero conversions per preconditioner application, and the
     mixed-precision residual matvec at the outer dtype stays a stencil apply);
     the flat path keeps the reference's (n, m) column convention.
     """

@@ -1,6 +1,6 @@
 """Build script for mgtpu's native host-setup extension.
 
-The device compute path is JAX/XLA/Pallas and needs no compilation; this
+The device compute path is JAX/XLA and needs no ahead-of-time build; this
 builds the optional C++ host-setup kernels (mgtpu/native/setup_kernels.cpp).
 They are also built lazily at import time by mgtpu.utils.native, so running
 this is never required — it just pre-builds.

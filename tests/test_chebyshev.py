@@ -1,4 +1,4 @@
-"""Chebyshev polynomial smoother (TPU-first addition; no reference analog).
+"""Chebyshev polynomial smoother (no reference analog).
 
 A degree-k Chebyshev polynomial in D^-1 A damps the upper spectrum far more
 per matvec than damped Jacobi, with no dot products (sharded-cycle friendly)

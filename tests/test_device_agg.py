@@ -42,7 +42,7 @@ def test_device_aggregation_valid_and_deterministic():
 
 
 def test_sa_device_convergence_parity(monkeypatch):
-    """Cycle counts within +1 of the greedy aggregation (VERDICT r3 bar);
+    """Cycle counts within +1 of the greedy aggregation;
     operator complexity within 2x (the measured trade: ~25% fewer cycles
     for ~40% more per-cycle work)."""
     L = _op(128)
@@ -90,8 +90,8 @@ def _op3d(n, nz, rough=1.0, seed=3):
 
 
 def _pmis_vs_commonc(L, levels):
-    """PMIS convergence contract vs the common-C reference path (VERDICT r3
-    item 6): SAME 1e-8 target, cycle count within ~30% of common-C, and an
+    """PMIS convergence contract vs the common-C reference path:
+    SAME 1e-8 target, cycle count within ~30% of common-C, and an
     operator-complexity ceiling — a PMIS regression that doubles cycles or
     blows up coarse-level stencils must FAIL here."""
     cfg, rp = get_mg_param(levels=levels, relax_type="jacobi",

@@ -1,7 +1,7 @@
 """Double-single (two-float32) residual arithmetic (ops/df32.py).
 
-TPUs emulate f64 ~5x slower than f32; the refinement driver certifies 1e-8
-through a compensated two-f32 fine residual instead.  These tests pin the
+The refinement driver certifies 1e-8 from an f32 hierarchy, without jax
+x64, through a compensated two-f32 fine residual.  These tests pin the
 error-free transforms and the full residual against numpy float64.
 """
 import numpy as np
@@ -144,7 +144,7 @@ def test_refined_complex_falls_back_to_high_precision_loop():
 
 
 def test_f64_hierarchy_reaches_below_df32_cap():
-    """ADVICE r1 (medium): a float64 hierarchy must NOT route through the
+    """A float64 hierarchy must NOT route through the
     df32 residual (attainable accuracy ~1e-13); tol=1e-14 has to be reachable
     with the true-f64 residual path, and verbose must not change the path."""
     from mgtpu.solvers.mg_solver import solve_mg_refined, _df32_residual_op
@@ -170,7 +170,7 @@ def test_f64_hierarchy_reaches_below_df32_cap():
 def test_refined_variable_coefficient_uses_dense_df32():
     """Variable-coefficient (non-const-interior) scalar operators certify
     through the DENSE df32 stencil instead of falling back to emulated f64
-    (VERDICT r1 item 4)."""
+   ."""
     from mgtpu.solvers.mg_solver import solve_mg_refined, _df32_residual_op
     from mgtpu.ops.df32 import DFGridStencil
     n = 48
@@ -196,8 +196,7 @@ def test_refined_variable_coefficient_uses_dense_df32():
 
 def test_df_ell_split_survives_x64_disabled():
     """df_ell_from_csr must split hi/lo in numpy BEFORE device transfer:
-    under jax_enable_x64=False (the production TPU state — Mosaic cannot
-    lower x64 traces) a jnp.asarray of f64 values silently truncates to
+    under jax_enable_x64=False (JAX's default) a jnp.asarray of f64 values silently truncates to
     f32, leaving values_lo == 0 and voiding the sharded-AMG df32
     certification (code-review r3)."""
     import jax

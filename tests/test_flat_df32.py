@@ -55,7 +55,7 @@ def test_flat_refined_true_1e8_with_x64():
 
 
 def test_flat_refined_true_1e8_without_x64():
-    """The production TPU state is x64 OFF — certify in a subprocess (the
+    """JAX's default is x64 OFF — certify in a subprocess (the
     suite's conftest enables x64 process-wide)."""
     import subprocess
     import sys
@@ -83,7 +83,7 @@ rr = np.linalg.norm(b - A.astype(np.float64) @ x)
 assert rr < 1.5e-8, rr
 print("TRUE_RR_OK", rr)
 """
-    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=420, env=env,
                        cwd=os.path.dirname(os.path.dirname(

@@ -268,3 +268,69 @@ def test_grid_engine_complex_shifted_laplacian():
     xr, rinfo = solve_mg_refined(st_c, b[:, 0], tol=1e-10)
     assert rinfo["relres"] < 1e-10
     assert np.linalg.norm(L @ np.asarray(xr) - b[:, 0]) < 1e-8
+
+
+def _kron_factors(factors):
+    K = factors[0]
+    for f in factors[1:]:
+        K = sp.kron(K, f, format="csr")
+    return K
+
+
+@pytest.mark.parametrize("grid,coarsen", [
+    ((17, 17), (True, True)),
+    ((9, 9, 9), (True, True, True)),
+    ((17, 12), (True, False)),            # semicoarsening
+    ((16, 17), (True, True)),             # even extent: identity tail
+    ((9, 7, 16), (True, False, True)),
+])
+def test_fw_transfer_matches_scipy(grid, coarsen):
+    """Strided full-weighting transfers == scipy R r and P x with the
+    fw_interp_1d factors (identity on an uncoarsened axis)."""
+    from mgtpu.cycle.grid_cycle import FWTransfer
+    from mgtpu.setup.transfers import fw_interp_1d
+    facs = [fw_interp_1d(n)[0] if c else sp.identity(n, format="csr")
+            for n, c in zip(grid, coarsen)]
+    P = _kron_factors(facs)                 # grid axis 0 is the slowest
+    R = (0.5 ** sum(coarsen)) * P.T
+    cgrid = tuple(f.shape[1] for f in facs)
+    T = FWTransfer(tuple(n if c else None for n, c in zip(grid, coarsen)))
+    rng = np.random.RandomState(len(grid))
+    r = rng.rand(2, *grid)
+    bc = np.asarray(grid_restrict(jnp.asarray(r), T)).reshape(2, -1)
+    np.testing.assert_allclose(bc, (R @ r.reshape(2, -1).T).T,
+                               rtol=1e-13, atol=1e-14)
+    xc = rng.rand(2, *cgrid)
+    xf = np.asarray(grid_prolong(jnp.asarray(xc), T)).reshape(2, -1)
+    np.testing.assert_allclose(xf, (P @ xc.reshape(2, -1).T).T,
+                               rtol=1e-13, atol=1e-14)
+
+
+def _cubic_factor(nf):
+    """Dense 1D cubic solution prolongation (nf x nc), the FMG reference."""
+    nc = (nf - 1) // 2 + 1
+    P = np.zeros((nf, nc))
+    P[np.arange(0, nf, 2), np.arange(nc)] = 1.0
+    w_int = np.array([-1.0, 9.0, 9.0, -1.0]) / 16.0
+    w_lo = np.array([5.0, 15.0, -5.0, 1.0]) / 16.0
+    for m in range(nc - 1):
+        r = 2 * m + 1
+        if nc < 4:
+            P[r, m:m + 2] = 0.5
+        elif m == 0:
+            P[r, 0:4] = w_lo
+        elif m == nc - 2:
+            P[r, nc - 4:nc] = w_lo[::-1]
+        else:
+            P[r, m - 1:m + 3] = w_int
+    return P
+
+
+@pytest.mark.parametrize("nf", [5, 9, 33])
+def test_cubic_prolong_matches_matrix(nf):
+    from mgtpu.cycle.grid_cycle import _cubic_prolong
+    Pc = _cubic_factor(nf)
+    xc = np.random.RandomState(nf).rand(2, Pc.shape[1], Pc.shape[1])
+    got = np.asarray(_cubic_prolong(jnp.asarray(xc), (nf, nf)))
+    ref = np.einsum("ia,mab,jb->mij", Pc, xc, Pc)
+    np.testing.assert_allclose(got, ref, rtol=1e-13, atol=1e-14)

@@ -1,6 +1,6 @@
 """Partitioned-iterate sharded AMG tier (parallel/part_amg.py).
 
-Contracts (VERDICT r3 item 5):
+Contracts:
  * iterate/iteration-count parity with the single-chip flat engine,
  * per-device iterate memory = n/ndev + halo with halo << n/ndev,
  * refined solve certifies a TRUE f64 residual at tol,
@@ -115,7 +115,7 @@ def test_memory_scales_with_devices():
     rows = solver.local_vector_rows()
     assert rows[0] == -(-A.shape[0] // 8)
     comm = solver.comm_entries_per_cycle()
-    # hand-computed fine-level bound (VERDICT r4 item 7): the 9-point
+    # hand-computed fine-level bound: the 9-point
     # operator on the 49x49 grid has row bandwidth 50, so a contiguous
     # block of rows references at most 50 off-block columns per side
     assert comm[0]["A"]["halo_entries"] <= 2 * 50
@@ -132,7 +132,7 @@ def test_unsupported_configs_raise():
 
 
 def test_kcycle_jacgmres_parity_vs_single_chip():
-    """K-cycle + Jac-GMRES smoothing fully partitioned (VERDICT r4 item 4):
+    """K-cycle + Jac-GMRES smoothing fully partitioned:
     the FGMRES projections psum their Gram inner products over the mesh
     axis, so iterates match the single-chip flat engine and the refined
     iteration count is identical."""
@@ -162,7 +162,7 @@ def test_kcycle_jacgmres_parity_vs_single_chip():
 
 def test_sparse_lu_coarsest_supported():
     """SparseLUCoarse (host SuperLU) coarsest inside the partitioned cycle
-    (VERDICT r4 item 4: the reference's UMFPACK coarsest has no dense-size
+    (the reference's UMFPACK coarsest has no dense-size
     limit, MGsetup.jl:350)."""
     from mgtpu.cycle.coarse import sparse_lu_from_scipy
     from mgtpu.setup.hierarchy import Hierarchy
@@ -228,7 +228,7 @@ def test_gmres_coarsest_fully_partitioned():
 
 
 def test_part_amg_3d_rough_coefficients():
-    """3D stress shape (VERDICT r4 item 7): rough-coefficient div-sigma-grad
+    """3D stress shape: rough-coefficient div-sigma-grad
     at 20^3, cycle parity + certified refined solve."""
     mesh = _mesh8()
     M = get_regular_mesh([0.0, 1.0] * 3, [20, 20, 20])
@@ -257,7 +257,7 @@ def test_part_amg_3d_rough_coefficients():
 
 
 def test_multi_distance_halo_plan_device_exact():
-    """A plan with >2 ring distances by construction (VERDICT r4 item 7):
+    """A plan with >2 ring distances by construction:
     couplings at row offsets ~1.5*p and ~2.5*p force |distances| >= 4; the
     remapped device matvec through shard_map stays exact."""
     from jax.sharding import PartitionSpec as P

@@ -1,6 +1,6 @@
 """Semicoarsening transfers (transfer_type="semicoarsening"): coarsen only
 the strongly coupled axes, re-detected per level from the stencil.  The
-robust-MG answer to anisotropy at depth (VERDICT r1 item 8); the reference
+robust-MG answer to anisotropy at depth; the reference
 has no semicoarsening."""
 import numpy as np
 import pytest
@@ -70,7 +70,7 @@ def test_strong_anisotropy_converges_with_point_jacobi(eps):
 
 @pytest.mark.slow
 def test_eps100_513_grid_contract():
-    """VERDICT r1 item 8 done-criterion: eps=100 anisotropy at 513^2 nodes,
+    """Done-criterion: eps=100 anisotropy at 513^2 nodes,
     grid-engine semicoarsened hierarchy converging to 1e-8."""
     M, A = _aniso(512, 100.0)
     cfg, rp = get_mg_param(levels=6, relax_type="jacobi", relax_param=0.8,

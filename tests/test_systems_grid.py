@@ -143,7 +143,7 @@ def test_systems_grid_refined_solve():
 
 @pytest.mark.slow
 def test_systems_grid_refined_uses_df32_block_residual():
-    """VERDICT r1 item 4: mixed elasticity certifies TRUE 1e-8 from an f32
+    """Mixed elasticity certifies TRUE 1e-8 from an f32
     hierarchy through the df32 BLOCK residual (no emulated-f64 SpMV)."""
     from mgtpu.solvers.mg_solver import solve_mg_refined, _df32_residual_op
     from mgtpu.ops.df32 import DFBlockOperator

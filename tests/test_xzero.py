@@ -2,7 +2,7 @@
 
 x_zero=True declares the incoming iterate exactly zero, letting every engine
 skip the r = b - A*0 entry matvec (one matvec saved per level per cycle — on
-the bench hierarchy ~1/3 of the coarse sub-cycle cost, VERDICT r4 item 3).
+the bench hierarchy ~1/3 of the coarse sub-cycle cost).
 A@0 is exact zeros, so results must be BITWISE identical, not just close.
 """
 import numpy as np
@@ -78,46 +78,6 @@ def test_flat_engine_xzero_bitwise():
         x_ref = np.asarray(recursive_cycle(cfg, st.hier, b, z))
         x_opt = np.asarray(recursive_cycle(cfg, st.hier, b, z, x_zero=True))
         assert np.array_equal(x_ref, x_opt), (relax, ctype)
-
-
-def test_fused3d_xzero_interpret(monkeypatch):
-    """The fused Pallas path's x_zero form (x1 = d*b + ONE residual apply
-    instead of the double apply) — interpret mode, bitwise-tolerant to the
-    kernel's own accumulation order (compare against the non-x_zero fused
-    path, which is the existing exactness baseline)."""
-    import mgtpu.ops.pallas.const3d as c3
-
-    def sc(offsets, grid, dtype):
-        return (len(grid) == 3
-                and all(abs(d) <= 1 for off in offsets for d in off)
-                and all(n >= 16 for n in grid)
-                and np.dtype(dtype) == np.float32)
-    monkeypatch.setattr(c3, "supports_const3d", sc)
-    monkeypatch.setenv("MGTPU_PALLAS3D", "interpret")
-    from mgtpu.cycle.grid_cycle import grid_cycle
-    from mgtpu.ops.grid_stencil import flat_to_grid
-    M = get_regular_mesh([0.0, 1.0] * 3, [18, 18, 18])
-    L = nodal_laplacian_matrix(M)
-    L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])).tocsr()
-    cfg, rp = get_mg_param(levels=2, relax_type="jacobi", relax_param=0.8,
-                           nu_pre=1, nu_post=1, dtype=np.float32)
-    st = mg_setup(L, M, cfg, rp)
-    from mgtpu.ops.grid_stencil import ConstGridStencil
-    assert isinstance(st.hier.levels[0].A, ConstGridStencil)
-    assert st.hier.levels[0].A.faces is not None
-    b = flat_to_grid(jnp.asarray(
-        np.random.RandomState(4).rand(L.shape[0], 1).astype(np.float32)),
-        st.hier.fine_grid)
-    z = jnp.zeros_like(b)
-    x_ref = np.asarray(grid_cycle(cfg, st.hier, b, z))
-    x_opt = np.asarray(grid_cycle(cfg, st.hier, b, z, x_zero=True))
-    # the x_zero path replaces the double-apply kernel (jacobi_residual3d)
-    # with d*b + the single-apply residual3d — same real arithmetic,
-    # different in-kernel accumulation order, so float32 tolerance (the
-    # XLA engines above are bitwise)
-    den = max(np.abs(x_ref).max(), 1e-30)
-    assert np.abs(x_ref - x_opt).max() / den < 5e-6, \
-        np.abs(x_ref - x_opt).max() / den
 
 
 def test_systems_engine_xzero_bitwise():

@@ -1,12 +1,10 @@
-"""Comm-volume accounting for the sharded tiers (VERDICT r3 item 7).
+"""Comm-volume accounting for the sharded tiers.
 
-Real multi-chip hardware is unavailable in this environment, so the
-weak-scaling north star (BASELINE.md protocol 3) cannot be measured
-directly.  The honest stand-in: compile each sharded tier's cycle for an
-8-device virtual CPU mesh and count the bytes its COLLECTIVES move per
-cycle, straight from the post-SPMD compiled HLO.  This quantifies (for
-example) the replicated-iterate AMG tier's all-gather cost and lets rounds
-compare communication structure without chips.
+Compiles each sharded tier's cycle for an 8-device virtual CPU mesh and
+counts the bytes its COLLECTIVES move per cycle, straight from the
+post-SPMD compiled HLO.  This quantifies (for example) the
+replicated-iterate AMG tier's all-gather cost and compares communication
+structure across tiers without GPUs; it is not a scaling measurement.
 
 Method: `jit(...).lower(args).compile().as_text()` gives the per-partition
 HLO module; every `all-reduce` / `all-gather` / `collective-permute` /
@@ -14,8 +12,8 @@ HLO module; every `all-reduce` / `all-gather` / `collective-permute` /
 lands on each device for that collective.  One V-cycle is fully unrolled
 (no while loops), so static instruction counts ARE per-cycle counts.
 
-Prints one JSON object; bench.py runs this as a CPU-only subprocess so the
-numbers land in every BENCH_r*.json regardless of chip health.
+Prints one JSON object; bench.py runs this as a CPU-only subprocess (it
+never opens a GPU).
 """
 import json
 import os
